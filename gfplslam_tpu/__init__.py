@@ -1,6 +1,6 @@
-"""TPU-native stereo point+line SLAM engine (GF-PL-SLAM capabilities, built from scratch).
+"""Stereo point+line SLAM engine in JAX (GF-PL-SLAM capabilities, built from scratch).
 
-A brand-new JAX/XLA/Pallas implementation of good-line-cutting stereo PL-SLAM:
+A JAX/XLA implementation of good-line-cutting stereo PL-SLAM:
 ORB point + LSD/LBD line front-end as batched device kernels, robust pose-only
 Gauss-Newton, information-maximizing line cutting, sliding-window local bundle
 adjustment via Schur complement, bag-of-words loop closure with SE(3) pose-graph
@@ -16,42 +16,24 @@ import os as _os
 
 import jax as _jax
 
-# Persistent XLA compilation cache: the engine's fused programs (front-end,
-# tracker, mapping pipeline) take tens of seconds to minutes to compile on a
-# TPU backend; caching them across processes makes every run after the first
-# start in milliseconds. Opt out with GFPLSLAM_NO_COMPILE_CACHE=1 or point
-# JAX_COMPILATION_CACHE_DIR elsewhere (that env var takes precedence in jax
-# itself; this default only fills in when it is unset).
+# Persistent XLA compilation cache: the engine's fused programs (front end,
+# tracker, mapping pipeline) take tens of seconds to minutes to compile, and
+# the cache makes every process after the first start in seconds. Where
+# JAX_COMPILATION_CACHE_DIR is set, JAX reads it and nothing is set here.
+# Otherwise the cache lives at the fixed path <checkout>/.jax_cache: the
+# directory is part of the cache key, so a path that moved would never hit.
+# Opt out with GFPLSLAM_NO_COMPILE_CACHE=1.
 if not _os.environ.get("GFPLSLAM_NO_COMPILE_CACHE"):
     if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        # scope the cache to this machine's CPU feature set: XLA:CPU AOT
-        # executables baked for one microarchitecture are reloaded verbatim
-        # from a shared cache dir and can SIGILL/segfault on a host with
-        # different features (observed: cross-machine cache reuse crashing
-        # inside put_executable_and_time during full test runs)
-        import hashlib as _hashlib
-        import platform as _platform
-        try:
-            with open("/proc/cpuinfo") as _f:
-                _cpu = next((ln for ln in _f if ln.startswith("flags")), "")
-        except OSError:
-            _cpu = _platform.processor()
-        _fp = _hashlib.sha1(
-            (_platform.machine() + _cpu).encode()).hexdigest()[:10]
-        _cache_dir = _os.path.join(
+        _jax.config.update("jax_compilation_cache_dir", _os.path.join(
             _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
-            ".jax_cache", _fp)
-        try:
-            _os.makedirs(_cache_dir, exist_ok=True)
-            _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        except OSError:
-            pass
+            ".jax_cache"))
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
 
-# Geometry/solver numerics require true fp32 matmuls. On TPU the default
-# matmul precision is bfloat16-grade, which is catastrophic for 6x6 Hessian
-# algebra (observed: 1e-2 error in a 3x3 product). Image-plane kernels that
-# can tolerate bf16 opt in explicitly via preferred_element_type/precision.
+# Geometry and solver numerics need true fp32 products: at TF32 or bf16
+# grade the 6x6 Hessian and SE(3) algebra is off by ~1e-2 (observed in a 3x3
+# product). Image-plane kernels that tolerate bf16 opt in explicitly via
+# preferred_element_type/precision.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from gfplslam_tpu.config import Config, default_config  # noqa: F401

@@ -1,11 +1,10 @@
 """Distributed-BA scaling benchmark over a device mesh.
 
 Measures the landmark-sharded Schur-complement solver
-(parallel/dist_ba.py) at 1, 2, 4, ... devices on a synthetic BA problem
+(parallel/dist_ba.py) at 1, 2, 4, ... GPUs on a synthetic BA problem
 (BASELINE config 5: keyframe/map-block partitioned distributed BA) and
-reports per-iteration time + scaling efficiency. On a CPU host set
-``XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu``
-for an 8-device virtual mesh; on a pod slice it runs over real chips/ICI.
+reports per-iteration time + scaling efficiency, with the card named in the
+JSON line. Needs an NVIDIA GPU: it exits non-zero without one.
 
 Usage: python -m gfplslam_tpu.apps.bench_dist_ba --kfs 16 --points 4096
 """
@@ -91,7 +90,9 @@ def main(argv=None):
     import jax
     from gfplslam_tpu.config import CameraParams
     from gfplslam_tpu.parallel import dist_ba
+    from gfplslam_tpu.utils.device import device_record, require_gpu
 
+    require_gpu(jax.devices())
     cam = CameraParams()
     n_dev = len(jax.devices())
     sizes = [d for d in (1, 2, 4, 8, 16) if d <= n_dev]
@@ -133,6 +134,7 @@ def main(argv=None):
         "problem": dict(kfs=args.kfs, points=args.points, lines=args.lines,
                         obs=int(args.kfs * (args.points + args.lines))),
         "reps": args.reps, "seed": args.seed, "aggregation": "median",
+        "device": device_record(),
         "ms_per_iter": {str(k): round(v, 3) for k, v in results.items()},
         "scaling_efficiency": {
             str(k): round(base / (v * k), 3) for k, v in results.items()},

@@ -23,7 +23,7 @@ import numpy as np
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="TPU PL-SLAM driver")
+    ap = argparse.ArgumentParser(description="stereo PL-SLAM driver")
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--synthetic", action="store_true")
     src.add_argument("--euroc", metavar="DIR")

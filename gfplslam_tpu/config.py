@@ -1,8 +1,8 @@
-"""Configuration tree for the TPU PL-SLAM engine.
+"""Configuration tree for the PL-SLAM engine.
 
 Provides every tunable the reference exposes through its ``Config`` singleton
 (reference: config.h:28-255, config.cpp:26-154) as one frozen dataclass tree,
-plus the TPU-specific capacity parameters (padded array sizes) that replace the
+plus the fixed-capacity parameters (padded array sizes) that replace the
 reference's dynamic containers. Defaults mirror config.cpp:29-153 exactly so the
 operating points in BASELINE.md hold.
 
@@ -139,7 +139,7 @@ class OrbParams:
     score: int = 1  # 0 HARRIS | 1 FAST
     patch_size: int = 31
     fast_th: int = 20
-    # TPU-specific: FAST candidates kept per pyramid level before top-K
+    # engine-specific: FAST candidates kept per pyramid level before top-K
     # distribution (replaces the quadtree, ORBextractor.cc:539).
     grid_cell: int = 32  # cell size in px for per-cell top-k distribution
     # sub-pixel stereo refinement window / search half-widths. The reference
@@ -167,7 +167,7 @@ class LsdParams:
 
 @dataclass(frozen=True)
 class CapacityParams:
-    """Fixed-capacity padded-shape parameters (TPU-specific, no reference
+    """Fixed-capacity padded-shape parameters (engine-specific, no reference
     analog: replaces std::vector growth with masked static shapes).
 
     Capacities are sized from the reference budgets: 1000 ORB + margins,

@@ -6,8 +6,10 @@ bounded prefetch queue on background threads, mirroring the role of the
 reference's cv::imread + rectifyImagesLR main-thread path
 (plslam_mod.cpp:330-354) but off the critical path.
 
-Builds the shared library on first use (``make`` in native/). Falls back to
-a pure-Python loader (cv2/PIL + jitted remap) if the toolchain is missing.
+Builds the shared library from source on first use in a process (``make``
+in native/, a no-op when the library is up to date). There is no fallback:
+without a C++ toolchain and libpng/libjpeg, ``get_lib`` returns None and the
+loader raises.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH) and not _build():
+    if not _build():
         return None
     lib = ctypes.CDLL(_LIB_PATH)
     lib.loader_create.restype = ctypes.c_void_p

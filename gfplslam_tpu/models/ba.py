@@ -7,11 +7,11 @@ over local keyframe poses + point landmarks (3-dof) + line landmarks
 (two 3-dof endpoints), robust weight 1/(1+r^2 sigma^2), lambda *=/= k
 schedule, outlier-observation marking.
 
-TPU-native design (replaces the reference's dense NxN Hessian +
+Design (replaces the reference's dense NxN Hessian +
 SimplicialLDLT, :1429-1441): the proper sparse structure is exploited —
 landmark 3x3 / line 6x6 blocks inverted in batch, the camera system reduced
 by the Schur complement to a dense [6K, 6K] (K = window size <= 8..16)
-solved with Cholesky on-chip. All observation loops are scatter-adds over
+solved with Cholesky on device. All observation loops are scatter-adds over
 fixed-capacity observation tables; the LM loop is a ``lax.while_loop``.
 
 Pose convention: ``kf_pose`` is cam->world; the solver perturbs the inverse

@@ -6,15 +6,15 @@ solver (parallel/dist_ba.py) run the SAME numerics — the distributed solver
 just ``psum``s the reduced camera system (and the error pieces) over the
 mesh between :func:`schur_reduce` and :func:`camera_solve`.
 
-TPU-native notes (why this looks the way it does):
-- index-summed accumulations are ONE-HOT MATMUL contractions, not
-  scatter-adds — XLA lowers duplicate-index scatter-add to a serialized
-  loop on TPU (~6 ms per LM iteration at the local-BA operating point);
-  the [Obs, K] / [Obs, P] one-hot products ride the MXU instead.
+Design notes (why this looks the way it does):
+- index-summed accumulations are ONE-HOT MATMUL contractions over
+  [Obs, K] / [Obs, P] selectors, not duplicate-index scatter-adds. Whether
+  ``jax.ops.segment_sum`` (atomics on the GPU) is faster is an open
+  measurement (ROADMAP.md, Speed item 2).
 - each selector matrix is read by exactly one matmul: the per-obs value
   columns (H blocks, b, cross blocks) are concatenated first.
-- landmark block inverses are closed-form (adjugate 3x3, block-Schur 6x6);
-  batched ``jnp.linalg.inv`` lowers to serialized LU on TPU.
+- landmark block inverses are closed-form (adjugate 3x3, block-Schur 6x6)
+  rather than batched ``jnp.linalg.inv`` (LU per block).
 
 Reference parity: the math mirrors levMarquardtOptimizationLBA
 (mapHandler.cpp:1217-1838) — robust weight 1/(1+r^2 sigma^2), analytic
@@ -105,7 +105,7 @@ def make_selectors(prob) -> tuple:
 # unchunked intermediates ([Op, P] one-hot + [Op, 12+18K] values +
 # [Op, K, 6, 3] cross products) peak at ~9 GB; accumulating over obs
 # chunks bounds them to ~chunk/Op of that while keeping every matmul
-# MXU-sized. Local windows (Op ~ 1k) stay on the unchunked path.
+# large. Local windows (Op ~ 1k) stay on the unchunked path.
 OBS_CHUNK = 8192
 
 
@@ -214,9 +214,9 @@ EIG_ABS_GATE = 1e-2
 
 def _sym3_eigvals(h: jax.Array) -> jax.Array:
     """Closed-form (trigonometric) eigenvalues of batched symmetric 3x3
-    matrices, ascending [..., 3]. Smith's method; batched ``linalg.eigh``
-    lowers to an iterative solver on TPU (measured: mapping cost per KF
-    blew up 54 -> 140 ms with eigh in the LM loop)."""
+    matrices, ascending [..., 3]. Smith's method: closed form, where a
+    batched ``linalg.eigh`` would run an iterative solver inside the LM
+    loop."""
     q = jnp.trace(h, axis1=-2, axis2=-1) / 3.0
     a = h - q[..., None, None] * jnp.eye(3)
     p2 = jnp.sum(a * a, axis=(-2, -1)) / 6.0
@@ -291,7 +291,7 @@ def landmark_inverses(bk: BABlocks, lam) -> tuple[jax.Array, jax.Array]:
     reject the step. Adding ~infinite stiffness along sub-gate
     eigendirections (closed-form 3x3 spectral analysis; the 6x6 line
     blocks gate their two endpoint 3x3 diagonal blocks) holds such
-    landmarks fixed along their unobservable axes — the TPU-native analog
+    landmarks fixed along their unobservable axes — the fixed-shape analog
     of the reference's min-parallax triangulation gating applied per
     solve."""
     eye3 = jnp.eye(3)

@@ -8,7 +8,7 @@ its helpers ``getPoseInfoOnLine``/``getPoseInfoPoint``/``updateEndPointByRatio``
 endpoints maximizing the log-volume (or min-eigenvalue) of the summed 6x6
 pose information matrix.
 
-TPU-native design: the reference loops lines sequentially, each running a
+Design: the reference loops lines sequentially, each running a
 greedy 8-neighbor walk. Here all lines take coordinate-ascent steps in
 parallel inside one ``lax.while_loop``: each iteration evaluates all 8
 candidate (r0, r1) moves for every line at once (vmapped closed-form info

@@ -9,7 +9,7 @@ verification with 5 acceptance gates (``isLoopClosure`` +
 ``computeRelativePoseGN``, :3078-3545), and pose-graph optimization with
 landmark correction (``loopClosureOptimizationEssGraphG2O``, :3950-4185).
 
-TPU-native design decisions:
+Design decisions:
 
 - DBoW2's hierarchical vocabulary tree (TemplatedVocabulary.h:1066-1127) is
   replaced by a flat anchor vocabulary: word(desc) = nearest of V fixed
@@ -22,7 +22,7 @@ TPU-native design decisions:
 - the conf-matrix row for a new KF against *all* past KFs is one matmul-like
   batched score; g2o's sparse PGO becomes a dense GN on [6K] twists (K <=
   512 keyframes) with autodiff edge Jacobians — small enough to solve
-  on-chip with Cholesky.
+  on device with Cholesky.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ insertion + pose composition (:113-187), KF<->map data association
 (``removeBadMapLandmarks``, :2550-2630), plus the observation bookkeeping
 that feeds local BA (obs lists, :1143-1161).
 
-TPU-native design: the reference's pointer graph (KeyFrame*/MapPoint*/
+Design: the reference's pointer graph (KeyFrame*/MapPoint*/
 MapLine* with std::vector obs lists, keyFrame.h:60-70, mapFeatures.h:40-95)
 becomes one `MapState` pytree of fixed-capacity arrays — landmark pools,
 flat observation tables (ring allocation), and a dense [K, K] covisibility

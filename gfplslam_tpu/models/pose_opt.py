@@ -13,7 +13,7 @@ MAD-based outlier rejection (``inlier_k * mad``, :2058-2116), stage 2
 - robust weight   w = 1 / (1 + r^2 sigma^2)
 - update          H dx = g ;  DT <- DT * exp(dx)^-1,  DT_cov = H^-1
 
-TPU-native design: per-feature Jacobians are one vmapped closed form; H/g are
+Design: per-feature Jacobians are one vmapped closed form; H/g are
 masked einsum reductions; the GN loop is a ``lax.while_loop`` with early-stop
 on error change; the whole two-stage solve + fallback logic is a single jitted
 function of fixed-capacity arrays.
@@ -164,8 +164,7 @@ def gauss_newton(cam: CameraParams, dt0: jax.Array, pts: PointMatches,
         # unrolled unpivoted f32 Cholesky here is NOT safe — H entries are
         # fx^2-scale (~1e6-1e8) and f32 round-off makes ~6% of real GN
         # Hessians indefinite-by-epsilon, which turned loop-closure
-        # verifications into NaN rejections (measured: the pivoted solve
-        # costs ~0.5 ms for all 15 iterations, not worth the risk).
+        # verifications into NaN rejections; the pivoted solve is kept.
         dx = jnp.linalg.solve(h + 1e-12 * jnp.eye(6, dtype=h.dtype), g)
         new_dt = dt @ se3.inverse_se3(se3.expmap_se3(dx))
         small = jnp.linalg.norm(dx) < 1e-7

@@ -6,7 +6,7 @@ constant-velocity prediction (:153-170), hybrid cross-frame matching
 pose-entropy keyframe decision (:2309-2380), adaptive FAST threshold + frame
 shift (:864-922), and track-loss counting (:2014-2028).
 
-TPU-native design: tracker state is a pytree of fixed-shape arrays
+Design: tracker state is a pytree of fixed-shape arrays
 (`TrackerState`); one jitted ``track_step`` consumes the previous state and
 the current frame's features and returns the new state + diagnostics. Pose
 convention: ``t_cam_w`` ("Tfw") maps camera->world, relative pose

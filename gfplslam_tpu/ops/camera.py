@@ -3,7 +3,7 @@
 Capability parity with the reference camera layer (pinholeStereoCamera.cpp:
 constructors :24-104 precompute undistort+rectify maps; ``rectifyImagesLR``
 :106-119; ``backProjection`` :133-141; ``getDisparity`` :159-162;
-``projection`` :164-170). Design differences for TPU:
+``projection`` :164-170). Design differences:
 
 - the per-pixel projection/back-projection are pure ``jnp`` closed forms,
   written for one point and ``vmap``-ed over padded feature arrays;

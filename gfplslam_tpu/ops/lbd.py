@@ -3,7 +3,7 @@
 Capability parity with the vendored binary LBD
 (binary_descriptor_custom.cpp:1026+, ``computeLBD``): per-line descriptors
 built from gradient statistics in bands parallel to the segment, binarized
-for Hamming matching. TPU-native design:
+for Hamming matching. Design:
 
 - a fixed sample grid in line-local coordinates (S samples along x B bands
   across) is rotated per line and gathered once for all lines (vmap);
@@ -28,8 +28,8 @@ from gfplslam_tpu.ops.pyramid import sobel
 
 N_BANDS = 9
 BAND_WIDTH = 3          # rows per band across the line
-N_ALONG = 12            # samples along the line (sampling budget tuned for
-                        # TPU gather cost; 9x3x12 = 324 samples/line)
+N_ALONG = 12            # samples along the line (sampling budget:
+                        # 9x3x12 = 324 gathered samples/line)
 FLOAT_DIM = N_BANDS * 8
 DESC_WORDS = 8
 

@@ -2,9 +2,9 @@
 
 Replaces the reference's LSD wrapper (3rdparty LSDDetector_custom.cpp:218-281
 around cv::LineSegmentDetector, options descriptor_custom.hpp:906-917). LSD's
-sequential region-growing does not map to TPU, so detection is re-designed
-around the ops the hardware executes at full speed (dense shifts/elementwise)
-instead of the ops it executes slowly (large gathers/scatters):
+sequential region-growing does not map to a data-parallel device, so
+detection is re-designed around dense shifts and elementwise ops instead of
+large gathers and scatters:
 
 1. Gaussian smooth + Sobel -> gradient magnitude and angle; support mask at
    the LSD gradient threshold ``quant / sin(ang_th)`` (the same rho LSD
@@ -117,9 +117,9 @@ def _refine_fragments(gx: jax.Array, gy: jax.Array, bin_ang: jax.Array,
     -angle agreement with the fragment's bin so the opposite edge of a bright
     ridge (antiparallel gradient, 2-3 px away) does not pull the centroid or
     inflate the stroke width. Takes the raw gradient components — magnitude
-    and angle are computed ONLY at the ~F*S*5 tap points (dense sqrt/atan2
-    over the full image cost ~2 ms/camera on-chip for values needed at <1%%
-    of pixels). Returns (center [F,2], dir [F,2] unit, sp [F,2], ep [F,2],
+    and angle are computed ONLY at the ~F*S*5 tap points (a dense
+    sqrt/atan2 over the full image would compute values needed at <1%% of
+    pixels). Returns (center [F,2], dir [F,2] unit, sp [F,2], ep [F,2],
     width [F], density [F], wsum [F])."""
     h, w = gx.shape
     t = jnp.linspace(0.0, 1.0, N_SAMPLES)[None, :, None]     # [1, S, 1]
@@ -264,7 +264,7 @@ def detect_lines(img: jax.Array, n_out: int = 512, rounds: int = 9,
     ang_tol = float(np.deg2rad(ang_th_deg))
     rho = quant / np.sin(ang_tol)
 
-    # orientation binning WITHOUT a dense atan2 (2 ms/camera on-chip):
+    # orientation binning WITHOUT a dense atan2:
     # nearest of 16 sector centers == argmax of the dot product with the 16
     # unit vectors — one [HW, 2] @ [2, 16] matmul + argmax. The support
     # threshold compares squared magnitudes (no dense sqrt either).
@@ -281,7 +281,7 @@ def detect_lines(img: jax.Array, n_out: int = 512, rounds: int = 9,
     best_len, best_bin = _run_ends(support, bin16, rounds)
 
     # --- fragment extraction: block-reduce, then top-K ---
-    # top_k over the raw 360k-pixel map at k=1024 is multi-ms on-chip; the
+    # top_k over the raw 360k-pixel map at k=1024 sorts every pixel; the
     # NMS'd run-end field is sparse (~10k nonzero), so keep only each
     # 2x4 block's best end first (encoded quantized-length + position key,
     # as in _run_ends' NMS) and run the top-K over the ~45k block winners.

@@ -30,7 +30,7 @@ def best2(d: jax.Array) -> tuple[jax.Array, jax.Array, jax.Array]:
     dd = d.astype(jnp.float32)
     i1 = jnp.argmin(dd, axis=1)
     d1 = jnp.min(dd, axis=1)
-    # fused one-hot suppression (a row scatter serializes on TPU)
+    # fused one-hot suppression of the best column
     masked = jnp.where(jnp.arange(d.shape[1])[None, :] == i1[:, None],
                        jnp.inf, dd)
     d2 = jnp.min(masked, axis=1)

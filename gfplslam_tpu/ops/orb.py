@@ -2,7 +2,7 @@
 
 Capability parity with the reference's extractor (ORBextractor.cc): intensity
 -centroid orientation ``IC_Angle`` (:77-102) and rotated-BRIEF descriptors
-(:103-142, 1043-1105). TPU-native design decisions:
+(:103-142, 1043-1105). Design decisions:
 
 - orientation and description are ``vmap``-ed closed forms over the padded
   keypoint array (one gather kernel each), not per-keypoint loops;
@@ -125,9 +125,9 @@ def ic_angles(img: jax.Array, xy: jax.Array) -> jax.Array:
 
 
 def _box_filter(x: jax.Array, radius: int) -> jax.Array:
-    """(2r+1)-square box sum as banded-matrix MXU matmuls (cross-lane
-    cumsum-shift differences are slow on TPU; see pyramid._separable_mxu).
-    Border behavior: zero outside (the cumsum form's semantics)."""
+    """(2r+1)-square box sum as banded-matrix matmuls (see
+    pyramid._separable_mxu). Border behavior: zero outside (the cumsum
+    form's semantics)."""
     from gfplslam_tpu.ops.pyramid import _band_matrix
     h, w = x.shape[-2], x.shape[-1]
     ones = tuple([1.0] * (2 * radius + 1))
@@ -143,7 +143,7 @@ def ic_angle_maps(img: jax.Array, radius: int = PATCH_RADIUS
                   ) -> tuple[jax.Array, jax.Array]:
     """Dense intensity-centroid moment maps (m10, m01) over a square window.
 
-    TPU-native replacement for per-keypoint disc-patch gathers (IC_Angle,
+    Dense replacement for per-keypoint disc-patch gathers (IC_Angle,
     ORBextractor.cc:77-102): three cumsum-based box filters compute the
     centered first moments for EVERY pixel; per-keypoint work drops to two
     1-element gathers. The square window (vs the reference's disc) changes
@@ -200,12 +200,12 @@ def brief_descriptors(img_blur: jax.Array, xy: jax.Array,
 PATCH_R = 19  # covers rotated pool offsets: |p| <= 13*sqrt(2) ~ 18.4
 
 # ---------------------------------------------------------------------------
-# MXU-binned steered BRIEF: the random-gather elimination.
+# Matmul-binned steered BRIEF: the random-gather elimination.
 #
-# On-chip profile (profile_vo.py, TPU v5e): the 375-gather-per-keypoint
-# BRIEF costs ~11.7 ms/frame at the EuRoC operating point — random HBM
-# gathers are ~10-20 ns/element (verify-skill cost model) and dominate the
-# whole VO frame. This variant replaces them with MXU work:
+# The 375-gather-per-keypoint BRIEF (brief_descriptors) does one random
+# device-memory gather per pool offset. This variant replaces them with
+# matmul work (whether that pays on the GPU, where gathers are cheaper, is
+# an open measurement — ROADMAP.md, Speed item 5):
 #   1. ONE contiguous (39, 40) patch per keypoint (block dynamic_slice —
 #      byte-bound DMA-like access, not per-element gather),
 #   2. rotation quantized to N_ROT_BINS bins (<= 5.6 deg error; the
@@ -265,7 +265,7 @@ def brief_from_patches(pf: jax.Array, angles: jax.Array) -> jax.Array:
     """[N, E] bf16 patches + [N] angles -> [N, 8] uint32 descriptors.
     Separated from patch extraction so callers can CONCATENATE the patches
     of all pyramid levels first — the [N, 1560] @ [1560, B*375] selector
-    matmul hits MXU efficiency at N ~ 1024+, not at per-level N ~ 256."""
+    matmul runs once at N ~ 1024+ instead of once per level at N ~ 256."""
     n = pf.shape[0]
     pool_n = np.asarray(BRIEF_POOL).shape[0]
     sel = jnp.asarray(_rotation_selectors())               # [E, B*P] bf16
@@ -300,12 +300,11 @@ def brief_descriptors_patch(img_blur: jax.Array, xy: jax.Array,
 
     Numerically the same descriptor family as :func:`brief_descriptors`
     (same pool/pairs, same steering) but the memory access pattern is
-    TPU-shaped: ONE contiguous (2R+1)^2 block per keypoint
+    block-shaped: ONE contiguous (2R+1)^2 block per keypoint
     (``dynamic_slice`` under vmap lowers to a coalesced block gather)
     followed by row-local pattern sampling inside the patch, instead of
-    ~375 random single-element gathers per keypoint against the full image
-    (random gathers are the dominant cost on this hardware — verify-skill
-    cost model). Centers are rounded before sampling (<=0.5 px shift vs the
+    ~375 random single-element gathers per keypoint against the full image.
+    Centers are rounded before sampling (<=0.5 px shift vs the
     float-center path; descriptors are self-consistent in-engine)."""
     h, w = img_blur.shape
     r = PATCH_R

@@ -1,8 +1,8 @@
 """Distributed bundle adjustment over a device mesh.
 
 The reference has no distributed capability (single-process C++,
-SURVEY.md section 2.4); this is the TPU-native scaling path the north-star
-requires: keyframe/map-block partitioned BA across chips/hosts.
+SURVEY.md section 2.4); this is its scaling path: keyframe/map-block
+partitioned BA across devices and hosts.
 
 Design (SURVEY.md section 7 item 7): landmarks and their observations are
 sharded across the mesh axis — each device owns a block of landmarks and all
@@ -10,14 +10,14 @@ observations of those landmarks; keyframe poses are replicated. Each device:
 
 1. assembles its landmarks' Hll blocks and their Schur reductions of the
    camera system locally,
-2. ``psum``s the reduced [6K, 6K] camera system + rhs over ICI,
+2. ``psum``s the reduced [6K, 6K] camera system + rhs over the mesh,
 3. solves the (tiny) camera system replicated, and
 4. back-substitutes its own landmark updates locally.
 
 The LM loop runs inside ``shard_map`` with replicated control flow (the
 psum'd error keeps every device's lambda schedule identical). Collectives
-ride the mesh axis — on hardware that is ICI; under the CPU test fixture it
-is the 8-device virtual mesh.
+ride the mesh axis — NVLink between the GPUs of one host; under the CPU
+test fixture, the 8-device virtual mesh.
 """
 
 from __future__ import annotations
@@ -28,10 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:  # jax >= 0.8 promotes shard_map out of experimental
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from gfplslam_tpu.config import CameraParams
 from gfplslam_tpu.models import ba as ba_ref
@@ -181,7 +178,7 @@ def solve_ba_sharded(cam: CameraParams, prob: BAProblem, mesh: Mesh,
 
         def step(bk, t_cw, pt, lsp, lep, lam):
             hpp_inv, hll_inv = ba_core.landmark_inverses(bk, lam)
-            # local Schur reductions, then psum over the mesh — the ICI
+            # local Schur reductions, then psum over the mesh — the
             # collective that makes this scale
             s_local, rhs_local = ba_core.schur_reduce(bk, hpp_inv, hll_inv)
             s_full = jax.lax.psum(s_local, axis)

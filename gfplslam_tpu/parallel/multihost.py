@@ -1,11 +1,10 @@
 """Guarded multi-host initialization for distributed runs.
 
 The reference is single-process (SURVEY.md section 2.4); this is the entry
-point the TPU framework uses to span hosts: `jax.distributed.initialize`
-wires all hosts of a slice (or a DCN-connected multi-slice job) into one
-SPMD world, after which `jax.devices()` is global and the landmark-sharded
-BA (parallel/dist_ba.py) and batch evaluation (parallel/batch.py) run
-unchanged over the full mesh.
+point for spanning hosts: `jax.distributed.initialize` wires the processes
+of a multi-host job into one SPMD world, after which `jax.devices()` is
+global and the landmark-sharded BA (parallel/dist_ba.py) and batch
+evaluation (parallel/batch.py) run unchanged over the full mesh.
 
 Call :func:`ensure_multihost` once at process start (run_slam/batch_eval do
 when ``--multihost`` is passed). It is a no-op when the env provides no
@@ -25,11 +24,10 @@ def ensure_multihost(coordinator: str | None = None,
                      process_id: int | None = None) -> bool:
     """Initialize jax.distributed exactly once if a coordinator is known.
 
-    Resolution order: explicit args, then the standard env vars
-    (JAX_COORDINATOR_ADDRESS / COORDINATOR_ADDRESS, NUM_PROCESSES,
-    PROCESS_ID — TPU pod runtimes also auto-resolve when initialize() is
-    called with no args on Cloud TPU). Returns True when a multi-process
-    world is active after the call.
+    Resolution order: explicit args, then the env vars
+    JAX_COORDINATOR_ADDRESS / COORDINATOR_ADDRESS, NUM_PROCESSES and
+    PROCESS_ID. All three must be known: nothing is auto-detected. Returns
+    True when a multi-process world is active after the call.
     """
     global _INITIALIZED
     import jax
@@ -47,9 +45,5 @@ def ensure_multihost(coordinator: str | None = None,
         jax.distributed.initialize(coordinator_address=coordinator,
                                    num_processes=num_processes,
                                    process_id=process_id)
-        _INITIALIZED = True
-    elif os.environ.get("TPU_WORKER_HOSTNAMES"):
-        # Cloud TPU pod: runtime auto-resolves everything
-        jax.distributed.initialize()
         _INITIALIZED = True
     return _INITIALIZED and jax.process_count() > 1

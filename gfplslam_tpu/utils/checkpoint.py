@@ -1,7 +1,7 @@
 """Map / tracker state checkpointing.
 
 The reference never serializes its map (SURVEY.md section 5: "Checkpoint /
-resume: None"); this adds the capability the TPU build is expected to have:
+resume: None"); this adds the capability:
 the full ``MapState`` + ``LoopState`` + tracker pose state round-trips
 through a single compressed npz (every field is a fixed-shape array, so the
 pytree serializes losslessly). Orbax is used when available for async

@@ -2,7 +2,7 @@
 
 The reference records wall time + feature counts per pipeline stage and dumps
 one row per frame to ``<out>_Log.txt`` (plslam_mod.cpp:494-513). Metric names
-are kept identical so BASELINE comparisons hold. On TPU most stages fuse into
+are kept identical so BASELINE comparisons hold. On device most stages fuse into
 one or two device programs; stages that share a program report the program's
 share under the fused name and the driver records the fused total too.
 """

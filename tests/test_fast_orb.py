@@ -53,6 +53,95 @@ def test_fast_agrees_with_cv2():
         assert jaccard > 0.8, f"jaccard {jaccard}"
 
 
+@pytest.mark.parametrize("h,w,th", [(40, 70, 20.0), (64, 100, 7.0),
+                                    (33, 45, 35.0)])
+def test_fast_score_map_matches_arc_reference(h, w, th):
+    """Integer intensities make the bf16 margins exact, so the score map
+    equals the per-pixel FAST-9 arc-score definition bit for bit."""
+    from chip_smoke import fast_score_reference
+    rng = np.random.default_rng(h * w)
+    img = rng.integers(0, 256, size=(h, w)).astype(np.float32)
+    got = np.asarray(fast.fast_score_map(jnp.asarray(img), jnp.asarray(th)))
+    ref = fast_score_reference(img, th)
+    assert (ref > 0).any()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_fast_score_vmap_traced_threshold():
+    """frame.py's per-level pattern: vmap over padded levels with a
+    closed-over traced threshold (the adaptive-FAST scalar) equals one call
+    per image."""
+    import jax
+    rng = np.random.default_rng(12)
+    imgs = jnp.asarray(rng.integers(0, 256, size=(3, 40, 64))
+                       .astype(np.float32))
+
+    @jax.jit
+    def run(imgs, th):
+        return jax.vmap(lambda im: fast.fast_score_map(im, th))(imgs)
+
+    for th in (10.0, 35.0):
+        out = np.asarray(run(imgs, jnp.asarray(th)))
+        ref = np.stack([np.asarray(fast.fast_score_map(imgs[i],
+                                                       jnp.asarray(th)))
+                        for i in range(3)])
+        np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("h,w,scale", [(40, 70, 1.0), (33, 45, 1.0),
+                                       (30, 64, 0.37)])
+def test_fast_triton_kernel_interpret_matches_xla(h, w, scale):
+    """The GPU kernel in the Pallas interpreter equals the XLA formulation
+    bit for bit, on shapes that are and are not whole tiles and on
+    non-integer intensities (blurred pyramid levels), where both round
+    every margin to bf16 the same way. The wrapper pads and crops back."""
+    rng = np.random.default_rng(h + w)
+    img = jnp.asarray(rng.integers(0, 256, size=(h, w)).astype(np.float32)
+                      * scale)
+    th = jnp.asarray(12.0)
+    got = np.asarray(fast.fast_score_map_triton(img, th, interpret=True))
+    ref = np.asarray(fast.fast_score_map_xla(img, th))
+    assert got.shape == (h, w)
+    assert (ref > 0).any()
+    np.testing.assert_array_equal(got, ref)
+    assert not got[:3].any() and not got[:, -3:].any()
+
+
+def test_fast_triton_kernel_vmap_traced_threshold():
+    """The front end's pattern on the GPU path: the kernel vmapped over
+    (camera, level) images with a traced threshold."""
+    import jax
+    rng = np.random.default_rng(5)
+    imgs = jnp.asarray(rng.integers(0, 256, size=(2, 2, 24, 40))
+                       .astype(np.float32))
+
+    @jax.jit
+    def run(imgs, th):
+        f = lambda im: fast.fast_score_map_triton(im, th, interpret=True)
+        return jax.vmap(jax.vmap(f))(imgs)
+
+    th = jnp.asarray(15.0)
+    out = np.asarray(run(imgs, th))
+    for c in range(2):
+        for lv in range(2):
+            np.testing.assert_array_equal(
+                out[c, lv], np.asarray(fast.fast_score_map_xla(imgs[c, lv],
+                                                               th)))
+
+
+def test_fast_score_map_kernel_choice():
+    """fast_score_map lowers to the Triton kernel for CUDA and to plain
+    XLA for the CPU."""
+    import jax
+    img = jnp.zeros((24, 40), jnp.float32)
+    th = jnp.asarray(20.0)
+    traced = jax.jit(fast.fast_score_map).trace(img, th)
+    cpu = traced.lower(lowering_platforms=("cpu",)).as_text()
+    cuda = traced.lower(lowering_platforms=("cuda",)).as_text()
+    assert "custom_call" not in cpu
+    assert "fast9_score" in cuda and "triton" in cuda
+
+
 def test_select_keypoints_shapes_and_spread():
     img = square_grid()
     s = fast.fast_score_map(jnp.asarray(img), 20.0)
@@ -86,8 +175,8 @@ def test_descriptor_rotation_invariance(rng):
     a1 = orb.ic_angle_one(jnp.asarray(rot), xy)
     d0 = orb.brief_descriptor_one(jnp.asarray(img), xy, a0)
     d1 = orb.brief_descriptor_one(jnp.asarray(rot), xy, a1)
-    from gfplslam_tpu.ops.hamming import hamming_matrix_xla
-    dist = int(hamming_matrix_xla(d0[None], d1[None])[0, 0])
+    from gfplslam_tpu.ops.hamming import hamming_matrix
+    dist = int(hamming_matrix(d0[None], d1[None])[0, 0])
     # random pairs average 128; steered same-point should be well below
     assert dist < 80, dist
 

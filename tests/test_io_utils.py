@@ -142,7 +142,7 @@ def test_euroc_asl_tree_end_to_end(tmp_path):
     """Full real-dataset ingestion path on a synthetic ASL tree: epoch-ns
     PNG filenames -> load_euroc (pairing + Bouguet rectification + GT csv)
     -> native prefetching decoder -> streaming chunk driver with
-    EPOCH-SCALE timestamps (the ADVICE-r4 path that silently lost track
+    EPOCH-SCALE timestamps (the path that once silently lost track
     when absolute times were cast to float32)."""
     import cv2
     import jax.numpy as jnp

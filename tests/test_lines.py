@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 
 from gfplslam_tpu.ops import lbd, lsd
-from gfplslam_tpu.ops.hamming import hamming_matrix_xla
+from gfplslam_tpu.ops.hamming import hamming_matrix
 
 
 def render_segments(segs, h=120, w=160, fg=255.0):
@@ -86,7 +86,7 @@ def test_lbd_matches_same_line_across_shift(rng):
     assert va.sum() >= 3 and vb.sum() >= 3
     da, _ = lbd.lbd_descriptors(jnp.asarray(base), la.sp, la.ep)
     db, _ = lbd.lbd_descriptors(jnp.asarray(shifted), lb.sp, lb.ep)
-    d = np.asarray(hamming_matrix_xla(da, db)).astype(float)
+    d = np.asarray(hamming_matrix(da, db)).astype(float)
     d = d[va][:, vb]
     spa = np.asarray(la.sp)[va]
     spb = np.asarray(lb.sp)[vb] - np.array([3.0, 0.0])

@@ -2,9 +2,10 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from gfplslam_tpu.ops import matching
-from gfplslam_tpu.ops.hamming import BIG, hamming_matrix, hamming_matrix_xla
+from gfplslam_tpu.ops.hamming import BIG, hamming_matrix
 
 
 def rand_desc(rng, n):
@@ -13,13 +14,44 @@ def rand_desc(rng, n):
 
 def test_hamming_matches_numpy(rng):
     a, b = rand_desc(rng, 32), rand_desc(rng, 48)
-    d = np.asarray(hamming_matrix_xla(jnp.asarray(a), jnp.asarray(b)))
+    d = np.asarray(hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
     ref = np.zeros((32, 48), np.uint32)
     for i in range(32):
         for j in range(48):
             ref[i, j] = bin(int.from_bytes(a[i].tobytes(), "little")
                             ^ int.from_bytes(b[j].tobytes(), "little")).count("1")
     np.testing.assert_array_equal(d, ref)
+
+
+def popcount_reference(a, b, rows=64):
+    """Hamming distances by unpacking every XOR word into bits."""
+    out = np.empty((len(a), len(b)), np.uint32)
+    for s in range(0, len(a), rows):
+        x = a[s:s + rows, None, :] ^ b[None, :, :]
+        out[s:s + rows] = np.unpackbits(
+            x.view(np.uint8), axis=-1).sum(-1, dtype=np.uint32)
+    return out
+
+
+@pytest.mark.parametrize("n,m", [(256, 128), (1024, 512), (100, 60)])
+def test_hamming_matrix_matches_popcount_reference(rng, n, m):
+    """The capacity shapes (stereo/tracker points, lines) and one that no
+    tile size divides."""
+    a, b = rand_desc(rng, n), rand_desc(rng, m)
+    d = np.asarray(hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(d, popcount_reference(a, b))
+
+
+def test_hamming_matrix_masking_consistency(rng):
+    a, b = rand_desc(rng, 256), rand_desc(rng, 128)
+    va = np.arange(256) % 3 != 0
+    vb = np.arange(128) % 2 == 0
+    d = np.asarray(hamming_matrix(jnp.asarray(a), jnp.asarray(b),
+                                  jnp.asarray(va), jnp.asarray(vb)))
+    assert (d[~va] == int(BIG)).all()
+    assert (d[:, ~vb] == int(BIG)).all()
+    live = np.asarray(hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(d[np.ix_(va, vb)], live[np.ix_(va, vb)])
 
 
 def test_hamming_mask(rng):
@@ -32,7 +64,7 @@ def test_hamming_mask(rng):
 
 def test_mutual_best_identity(rng):
     a = rand_desc(rng, 16)
-    d = hamming_matrix_xla(jnp.asarray(a), jnp.asarray(a))
+    d = hamming_matrix(jnp.asarray(a), jnp.asarray(a))
     m = matching.mutual_best(d)
     np.testing.assert_array_equal(np.asarray(m.idx), np.arange(16))
     assert np.all(np.asarray(m.valid))
